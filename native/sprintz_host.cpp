@@ -1,9 +1,9 @@
-// Native host-side runtime for sprintz_tpu: emission planner and header
+// Native host-side runtime for sprintz_jax: emission planner and header
 // walk. These are the only intrinsically sequential, per-block host loops
-// in the framework (stream-order bookkeeping); the data path runs on TPU.
+// in the framework (stream-order bookkeeping); the data path runs on the accelerator.
 //
-// Semantics mirror sprintz_tpu/planner.py:build_plan and
-// sprintz_tpu/decoder.py:walk_headers exactly (shared test suite), which
+// Semantics mirror sprintz_jax/planner.py:build_plan and
+// sprintz_jax/decoder.py:walk_headers exactly (shared test suite), which
 // in turn replicate the reference encoder's consumption order
 // (sprintz_delta_rle.cpp:214-312).
 
@@ -633,7 +633,7 @@ void sprintz_histogram(const uint8_t* data, int64_t n, int64_t* counts) {
 }
 
 // Encode n symbols into per-chunk bit-packed payloads (LSB-first, same
-// layout as the numpy emitter in sprintz_tpu/entropy/huffman.py).
+// layout as the numpy emitter in sprintz_jax/entropy/huffman.py).
 // codes/lengths: canonical LSB-first per symbol. sizes_out: nchunks u32
 // payload byte counts. Returns total payload bytes, or -1 if out_cap hit.
 int64_t sprintz_huff_encode(
@@ -754,7 +754,7 @@ int64_t sprintz_huff_decode(
 }  // extern "C"
 
 // Assemble the final byte stream from an emission plan and per-block
-// device outputs. Mirrors sprintz_tpu/encoder.py:assemble_stream (shared
+// device outputs. Mirrors sprintz_jax/encoder.py:assemble_stream (shared
 // tests assert byte equality). Returns total bytes written, or -1 if
 // out_cap would be exceeded.
 //

@@ -2,7 +2,7 @@
 
 Launched by tests/test_multihost.py as N separate OS processes joined by
 jax.distributed over a local Gloo coordinator — the CPU-backend analogue
-of a multi-host TPU pod (SURVEY §4: "multi-host tests via multi-process
+of a multi-host accelerator cluster (SURVEY §4: "multi-host tests via multi-process
 jax.distributed simulation on CPU"). Each process holds only its
 host-local slice of the input and must still produce the byte-exact
 single-chip stream.
@@ -50,8 +50,8 @@ def main() -> None:
 
     import numpy as np
 
-    from sprintz_tpu import encoder
-    from sprintz_tpu.parallel import multihost as mh
+    from sprintz_jax import encoder
+    from sprintz_jax.parallel import multihost as mh
 
     assert jax.process_count() == nproc
     mesh = mh.global_mesh()

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from sprintz_tpu.checkpoint import (
+from sprintz_jax.checkpoint import (
     Sidecar,
     compress_with_sidecar,
     decode_range,
@@ -28,7 +28,7 @@ def test_decode_range_matches_full(rng, codec):
 
 
 def test_stream_is_byte_exact_with_sidecar(rng):
-    from sprintz_tpu import encoder
+    from sprintz_jax import encoder
 
     x = make_stream(rng, 3000, 1, "small")
     stream, _ = compress_with_sidecar(x, 1, codec="delta")
@@ -43,7 +43,7 @@ def test_stream_is_byte_exact_with_sidecar(rng):
 def test_decompress_parallel_one_pass(rng, codec, elem_sz, kind):
     """decompress_parallel == serial decompress == input, for rowmajor
     streams with and without RLE runs (vmapped _decode_pass_chunks)."""
-    from sprintz_tpu import decoder
+    from sprintz_jax import decoder
 
     D = 24
     nrows = 3000
@@ -76,7 +76,7 @@ def test_decompress_parallel_tiny_and_single_chunk(rng):
 
 
 def test_api_seekable_roundtrip(rng):
-    from sprintz_tpu.api import SprintzCodec
+    from sprintz_jax.api import SprintzCodec
 
     cd = SprintzCodec(codec="xff", elem_sz=2)
     data = make_stream(rng, 4000 * 12, 2, "sparse").reshape(4000, 12)
@@ -107,7 +107,7 @@ def test_chunk_parallel_decode(rng):
 
 
 def test_decompress_parallel_rejects_bad_sidecar(rng):
-    from sprintz_tpu.errors import CorruptStreamError
+    from sprintz_jax.errors import CorruptStreamError
 
     flat = make_stream(rng, 4000 * 8, 1, "sparse")
     stream, sc = compress_with_sidecar(flat, 8, codec="delta",

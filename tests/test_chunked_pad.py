@@ -13,8 +13,8 @@ import jax
 import numpy as np
 import pytest
 
-import sprintz_tpu.ops.pack as pack
-from sprintz_tpu import decoder, encoder
+import sprintz_jax.ops.pack as pack
+from sprintz_jax import decoder, encoder
 
 
 @pytest.fixture
@@ -43,7 +43,7 @@ def test_chunked_pad_matches_direct(rng, tiny_chunk):
     """pack/unpack through the ragged chunk path == one direct call."""
     import jax.numpy as jnp
 
-    from sprintz_tpu.ops.bitmath import block_widths_rowmajor
+    from sprintz_jax.ops.bitmath import block_widths_rowmajor
 
     nb = 37  # > _CHUNK=16, not a multiple
     errs = jnp.asarray(rng.integers(0, 64, (nb, 8, 16)), jnp.int32)
@@ -51,5 +51,6 @@ def test_chunked_pad_matches_direct(rng, tiny_chunk):
     widths = jnp.asarray(block_widths_rowmajor(orm, 1), jnp.int32)
     errs = errs & ((1 << widths)[:, None, :] - 1)
     dense = pack.pack_rows_rowmajor(errs, widths, 1)
-    got = pack.unpack_rows_rowmajor(dense.astype(jnp.int32), widths)
+    got = pack.unpack_rows_rowmajor(dense.astype(jnp.int32), widths,
+                                    elem_sz=1)
     np.testing.assert_array_equal(np.asarray(got), np.asarray(errs))

@@ -1,12 +1,12 @@
-"""CLI round-trips (sprintz_tpu.__main__): container + raw modes."""
+"""CLI round-trips (sprintz_jax.__main__): container + raw modes."""
 
 import ast
 
 import numpy as np
 import pytest
 
-from sprintz_tpu.__main__ import main, MAGIC, MAGIC_V1, _pack_flags
-from sprintz_tpu import api
+from sprintz_jax.__main__ import main, MAGIC, MAGIC_V1, _pack_flags
+from sprintz_jax import api
 
 
 @pytest.fixture

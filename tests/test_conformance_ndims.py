@@ -4,7 +4,7 @@ test/compress_testing.hpp:482-496, reduced for CI time)."""
 import numpy as np
 import pytest
 
-from sprintz_tpu import decoder, encoder
+from sprintz_jax import decoder, encoder
 
 from conftest import make_stream
 
@@ -59,7 +59,7 @@ def test_full_ndims_oracle_conformance(rng, codec, elem_sz, ndims):
 
     if not oracle.available():
         pytest.skip("oracle not built")
-    from sprintz_tpu.api import SprintzCodec
+    from sprintz_jax.api import SprintzCodec
 
     refname = f"sprintz_compress_{codec}_{8 * elem_sz}b"
     mine = SprintzCodec(codec, elem_sz, backend="golden")

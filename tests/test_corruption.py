@@ -10,8 +10,8 @@ exceptions — for both the native and the Python header walkers.
 import numpy as np
 import pytest
 
-from sprintz_tpu import api
-from sprintz_tpu.errors import CorruptStreamError
+from sprintz_jax import api
+from sprintz_jax.errors import CorruptStreamError
 
 from conftest import make_stream
 
@@ -49,8 +49,8 @@ def test_bitflip_fuzz(rng, codec, elem_sz):
 
 def test_python_walker_matches_native_on_corrupt(rng, monkeypatch):
     """Both walkers enforce identical bounds: same accept/reject verdict."""
-    from sprintz_tpu import decoder, native_host
-    from sprintz_tpu.golden.stream import read_metadata_rle
+    from sprintz_jax import decoder, native_host
+    from sprintz_jax.golden.stream import read_metadata_rle
 
     if native_host.get_lib() is None:
         pytest.skip("native host lib unavailable")

@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from sprintz_tpu.data import (
+from sprintz_jax.data import (
     CORPUS_PROFILES,
     load_dataset,
     quantize,
@@ -33,7 +33,7 @@ def test_dat_layout_roundtrip(tmp_path, rng):
 
 
 def test_synthetic_profiles_compressible():
-    from sprintz_tpu import encoder
+    from sprintz_jax import encoder
 
     for name, prof in CORPUS_PROFILES.items():
         mat = synthetic_corpus(name, nrows=4000)

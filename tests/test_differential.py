@@ -11,9 +11,9 @@ import secrets
 import numpy as np
 import pytest
 
-from sprintz_tpu import decoder, encoder
-from sprintz_tpu.golden.lowdim import compress_lowdim_rle
-from sprintz_tpu.golden.rowmajor import compress_rowmajor_rle
+from sprintz_jax import decoder, encoder
+from sprintz_jax.golden.lowdim import compress_lowdim_rle
+from sprintz_jax.golden.rowmajor import compress_rowmajor_rle
 
 SEED = int(os.environ.get("SPRINTZ_FUZZ_SEED", secrets.randbits(32)))
 N_CASES = int(os.environ.get("SPRINTZ_FUZZ_CASES", 6))

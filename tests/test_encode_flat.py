@@ -10,8 +10,8 @@ structure and the verbatim tail.
 import numpy as np
 import pytest
 
-import sprintz_tpu.encoder as enc
-from sprintz_tpu import decoder
+import sprintz_jax.encoder as enc
+from sprintz_jax import decoder
 
 
 @pytest.fixture(params=["auto", "all", "0"])

@@ -4,7 +4,7 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from sprintz_tpu.frames import (
+from sprintz_jax.frames import (
     ByteShuffle,
     CodecSearch,
     Delta,
@@ -94,7 +94,7 @@ def test_multi_frame_headers(rng):
 
 
 def test_storage_backends(tmp_path, rng):
-    from sprintz_tpu.frames.storage import available_backends, load_df, save_df
+    from sprintz_jax.frames.storage import available_backends, load_df, save_df
 
     df = make_df(rng)
     for name in available_backends():
@@ -111,8 +111,8 @@ def test_storage_backends(tmp_path, rng):
 def test_colsum_predictor_roundtrip():
     import pandas as pd
 
-    from sprintz_tpu.frames.codecs import ColSumPredictor, Delta
-    from sprintz_tpu.frames.dfsqueeze import encode, decode
+    from sprintz_jax.frames.codecs import ColSumPredictor, Delta
+    from sprintz_jax.frames.dfsqueeze import encode, decode
 
     rng = np.random.default_rng(0)
     a = rng.integers(0, 100, 500).astype(np.int64)
@@ -131,8 +131,8 @@ def test_colsum_predictor_roundtrip():
 def test_colsum_predictor_weights():
     import pandas as pd
 
-    from sprintz_tpu.frames.codecs import ColSumPredictor
-    from sprintz_tpu.frames.dfsqueeze import encode, decode
+    from sprintz_jax.frames.codecs import ColSumPredictor
+    from sprintz_jax.frames.dfsqueeze import encode, decode
 
     rng = np.random.default_rng(1)
     a = rng.integers(0, 50, 300).astype(np.int32)

@@ -8,9 +8,9 @@ including RLE-heavy inputs and the lowdim/rowmajor dispatch boundary.
 import numpy as np
 import pytest
 
-from sprintz_tpu import api
-from sprintz_tpu.golden.lowdim import compress_lowdim_rle, decompress_lowdim_rle
-from sprintz_tpu.golden.rowmajor import (
+from sprintz_jax import api
+from sprintz_jax.golden.lowdim import compress_lowdim_rle, decompress_lowdim_rle
+from sprintz_jax.golden.rowmajor import (
     compress_rowmajor_rle,
     decompress_rowmajor_rle,
     read_metadata_rle,
@@ -86,8 +86,8 @@ def test_compression_ratio_sanity(rng):
 
 def test_custom_codec_config(rng):
     # non-default block/group sizes give self-consistent streams
-    from sprintz_tpu.constants import CodecConfig
-    from sprintz_tpu.golden.stream import (
+    from sprintz_jax.constants import CodecConfig
+    from sprintz_jax.golden.stream import (
         LowDimLayout, RowMajorLayout, compress_rle, decompress_rle)
 
     for cfg in (CodecConfig(block_sz=16, group_sz_blocks=4),

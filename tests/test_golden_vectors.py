@@ -11,9 +11,9 @@ import pathlib
 import numpy as np
 import pytest
 
-from sprintz_tpu import decoder, encoder
-from sprintz_tpu.golden.lowdim import compress_lowdim_rle
-from sprintz_tpu.golden.rowmajor import compress_rowmajor_rle
+from sprintz_jax import decoder, encoder
+from sprintz_jax.golden.lowdim import compress_lowdim_rle
+from sprintz_jax.golden.rowmajor import compress_rowmajor_rle
 
 VEC = pathlib.Path(__file__).parent / "vectors"
 MANIFEST = json.loads((VEC / "manifest.json").read_text())

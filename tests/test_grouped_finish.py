@@ -13,9 +13,9 @@ import jax
 import numpy as np
 import pytest
 
-import sprintz_tpu.decoder as dec
-import sprintz_tpu.ops.pack as pack
-from sprintz_tpu import encoder
+import sprintz_jax.decoder as dec
+import sprintz_jax.ops.pack as pack
+from sprintz_jax import encoder
 
 
 @pytest.fixture(params=list(itertools.product(["v1", "v2"],
@@ -56,7 +56,7 @@ def test_grouped_roundtrip(rng, finish_cfg, ndims, elem_sz, runs):
 def test_grouped_seek_state(rng, finish_cfg, ndims, elem_sz):
     """decode_range carries forecaster state through the finish's
     ``state`` argument — both finish versions must agree."""
-    from sprintz_tpu import checkpoint
+    from sprintz_jax import checkpoint
 
     dt = np.uint8 if elem_sz == 1 else np.uint16
     nrows = 8 * 600

@@ -5,9 +5,9 @@ import itertools
 import numpy as np
 import pytest
 
-from sprintz_tpu import decoder, encoder
-from sprintz_tpu.golden.lowdim import compress_lowdim_rle
-from sprintz_tpu.golden.rowmajor import compress_rowmajor_rle
+from sprintz_jax import decoder, encoder
+from sprintz_jax.golden.lowdim import compress_lowdim_rle
+from sprintz_jax.golden.rowmajor import compress_rowmajor_rle
 
 from conftest import make_stream
 
@@ -33,8 +33,8 @@ def test_forecaster_exactness(rng):
     # JAX forecasters vs golden predictor state machines, incl. wraparound
     import jax.numpy as jnp
 
-    from sprintz_tpu.golden.predictors import FirePredictor
-    from sprintz_tpu.models.forecasters import fire_decode, fire_encode
+    from sprintz_jax.golden.predictors import FirePredictor
+    from sprintz_jax.models.forecasters import fire_decode, fire_encode
 
     for elem_sz, trunc in [(1, True), (1, False), (2, True), (2, False)]:
         eb = 8 * elem_sz
@@ -50,7 +50,7 @@ def test_forecaster_exactness(rng):
 
 
 def test_compress_batch_byte_exact(rng):
-    from sprintz_tpu import encoder
+    from sprintz_jax import encoder
 
     S, rows, D = 5, 700, 9
     streams = make_stream(rng, S * rows * D, 1, "sparse").reshape(S, rows, D)
@@ -63,7 +63,7 @@ def test_compress_batch_byte_exact(rng):
 def test_decompress_batch(rng):
     """Batched decode == per-stream decode, mixed content (contiguous,
     RLE-heavy fallback, verbatim-small)."""
-    from sprintz_tpu.decoder import decompress_batch
+    from sprintz_jax.decoder import decompress_batch
 
     D = 9
     streams = []
@@ -84,7 +84,7 @@ def test_decompress_batch(rng):
 def test_decompress_batch_runs_streams(rng, codec, D):
     """Streams containing RLE runs batch through the vmapped
     block-gather timeline (VERDICT r2 item 6) — not per-stream decode."""
-    from sprintz_tpu.decoder import decompress_batch
+    from sprintz_jax.decoder import decompress_batch
 
     streams = []
     for s in range(4):
@@ -95,7 +95,7 @@ def test_decompress_batch_runs_streams(rng, codec, D):
     bufs = [encoder.compress(x, D, codec=codec) for x in streams]
     # confirm these streams actually contain runs (else the test is vacuous)
     idx = decoder.walk_headers(
-        bufs[0], *__import__("sprintz_tpu.golden.stream",
+        bufs[0], *__import__("sprintz_jax.golden.stream",
                              fromlist=["read_metadata_rle"]
                              ).read_metadata_rle(bufs[0])[0:1],
         D, 1, lowdim=D <= 4)
@@ -144,8 +144,7 @@ def test_maxb_bucket_mult8_matches(rng, monkeypatch):
 def test_grouped_decode_optin_matches(rng, monkeypatch):
     """SPRINTZ_GROUPED_DECODE=1 routes runs-containing rowmajor streams
     through the width-signature-grouped pass; output must match the
-    default scatter pass bit-for-bit (the device A/B in STATUS.md made
-    scatter the default)."""
+    default pass bit-for-bit."""
     D = 16
     x = make_stream(rng, 3000 * D, 1, "sparse")  # sparse -> RLE runs
     buf = encoder.compress(x, D, codec="delta")
@@ -158,9 +157,9 @@ def test_grouped_decode_optin_matches(rng, monkeypatch):
 
 def test_api_batch_roundtrip(rng):
     """SprintzCodec.compress_batch/decompress_batch == per-stream, both
-    codecs, u8+u16 (the batch axis is the TPU throughput surface for
+    codecs, u8+u16 (the batch axis is the device throughput surface for
     fleets of small streams)."""
-    from sprintz_tpu.api import SprintzCodec
+    from sprintz_jax.api import SprintzCodec
 
     for codec, esz, d in (("delta", 1, 4), ("xff", 2, 9)):
         dt = np.uint8 if esz == 1 else np.uint16
@@ -176,7 +175,7 @@ def test_api_batch_dtype_mismatch_raises(rng):
     """ADVICE r3 (medium): a SprintzCodec(elem_sz=1) given uint16 arrays
     must raise like the single-stream path, not silently write u16
     streams through the batched fast path."""
-    from sprintz_tpu.api import SprintzCodec
+    from sprintz_jax.api import SprintzCodec
 
     c = SprintzCodec("delta", 1)
     arrs = [rng.integers(0, 1 << 16, (160, 4)).astype(np.uint16)

@@ -4,7 +4,7 @@ semantics (learning.py:253-398) on small grids."""
 import numpy as np
 import pytest
 
-from sprintz_tpu.models.learning import (
+from sprintz_jax.models.learning import (
     all_possible_filters,
     greedy_brute_filters,
 )

@@ -6,9 +6,9 @@ import pathlib
 import numpy as np
 import pytest
 
-from sprintz_tpu import api
-from sprintz_tpu.data import loaders
-from sprintz_tpu.data.corpus import quantize, read_dat
+from sprintz_jax import api
+from sprintz_jax.data import loaders
+from sprintz_jax.data.corpus import quantize, read_dat
 
 MINI = pathlib.Path(__file__).parent / "data" / "mini_corpus"
 

@@ -1,7 +1,8 @@
 """Real multi-process multi-host simulation (SURVEY §4's missing layer).
 
-The reference has no distributed tests at all; the TPU-native framework's
-scaling story is jax.distributed over a pod, which this test simulates
+The reference has no distributed tests at all; this framework's
+multi-host scaling story is jax.distributed over several hosts, which
+this test simulates
 faithfully: TWO separate OS processes, each with 4 virtual CPU devices,
 joined through a Gloo coordinator into one 8-device global mesh. Each
 worker holds only its host-local input slice; both must produce the
@@ -34,7 +35,7 @@ def _free_port() -> int:
 def test_two_process_gloo_byte_exact(tmp_path):
     """2 processes x 4 devices: distributed encode/decode is byte-exact."""
     # pre-build the native host lib so the workers don't both compile it
-    from sprintz_tpu import native_host
+    from sprintz_jax import native_host
 
     native_host.get_lib()
 
@@ -67,7 +68,7 @@ def test_two_process_gloo_byte_exact(tmp_path):
 
 def test_host_local_elems_partition():
     """Single-process: the slice covers everything exactly once."""
-    from sprintz_tpu.parallel import multihost as mh
+    from sprintz_jax.parallel import multihost as mh
 
     for ndims, n in [(7, 7 * 8 * 53 + 11), (6, 6 * 8 * 16), (3, 50)]:
         sl = mh.host_local_elems(n, ndims)
@@ -76,8 +77,8 @@ def test_host_local_elems_partition():
 
 def test_mp_compress_single_process_matches_encoder(rng):
     """mp_compress degrades to the single-chip byte stream in-process."""
-    from sprintz_tpu import encoder
-    from sprintz_tpu.parallel import multihost as mh
+    from sprintz_jax import encoder
+    from sprintz_jax.parallel import multihost as mh
 
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")

@@ -1,7 +1,7 @@
 """MXU number-format variants (ops/pack.MXU_IMPL): bf16 vs s8.
 
 The exact-matmul kernels admit two formats: bf16 inputs with power-of-two
-weights (proved exact by magnitude bounds) and v5e-native s8*s8->s32
+weights (proved exact by magnitude bounds) and s8*s8->s32
 (exact by integer arithmetic). Both must produce identical results; the
 flag is read at trace time, so each parametrization clears jit caches.
 """
@@ -10,9 +10,9 @@ import jax
 import numpy as np
 import pytest
 
-import sprintz_tpu.ops.pack as pack
-from sprintz_tpu.models import forecasters as fc
-from sprintz_tpu.ops.bitmath import block_widths_rowmajor
+import sprintz_jax.ops.pack as pack
+from sprintz_jax.models import forecasters as fc
+from sprintz_jax.ops.bitmath import block_widths_rowmajor
 
 
 @pytest.fixture(params=["bf16", "s8"])
@@ -37,7 +37,8 @@ def test_unpack_pack_roundtrip(rng, mxu_impl, ndims, elem_sz):
     widths = jnp.asarray(block_widths_rowmajor(orm, elem_sz), jnp.int32)
     errs = errs & ((1 << widths)[:, None, :] - 1)
     dense = pack.pack_rows_rowmajor(errs, widths, elem_sz)
-    got = pack.unpack_rows_rowmajor(dense.astype(jnp.int32), widths)
+    got = pack.unpack_rows_rowmajor(dense.astype(jnp.int32), widths,
+                                    elem_sz=elem_sz)
     np.testing.assert_array_equal(np.asarray(got), np.asarray(errs))
 
 
@@ -69,7 +70,7 @@ def test_hierarchical_cumsum_exact(rng, prefix_impl, value_bits, chunk):
 def test_stream_bytes_identical_across_impls(rng, codec, elem_sz):
     """The MXU format is an implementation detail: compressed bytes must
     be bit-identical under bf16 and s8."""
-    from sprintz_tpu import encoder
+    from sprintz_jax import encoder
 
     flat = np.cumsum(rng.integers(-9, 10, 2000 * 33)).astype(
         np.uint8 if elem_sz == 1 else np.uint16)
@@ -88,7 +89,7 @@ def test_stream_bytes_identical_across_impls(rng, codec, elem_sz):
 
 def test_s8_full_stream_roundtrip(rng):
     """End-to-end compress/decompress under the s8 MXU format."""
-    from sprintz_tpu import decoder, encoder
+    from sprintz_jax import decoder, encoder
 
     prev = pack.MXU_IMPL
     pack.MXU_IMPL = "s8"
@@ -124,7 +125,7 @@ def test_lowdim_impl_roundtrip(rng, lowdim_impl, ndims, elem_sz):
     bytes and invert exactly."""
     import jax.numpy as jnp
 
-    from sprintz_tpu.ops.bitmath import block_widths_lowdim
+    from sprintz_jax.ops.bitmath import block_widths_lowdim
 
     eb = 8 * elem_sz
     nb = 512
@@ -166,7 +167,7 @@ def test_dmajor_unpack_matches_legacy(rng, ndims, elem_sz):
     across every legal width (incl. promotions)."""
     import jax.numpy as jnp
 
-    from sprintz_tpu.ops.bitmath import block_widths_lowdim
+    from sprintz_jax.ops.bitmath import block_widths_lowdim
 
     eb = 8 * elem_sz
     nb = 512
@@ -195,7 +196,7 @@ def test_dynshift_unpack_matches_legacy(rng, ndims, elem_sz):
     lowdim formats across every legal width (incl. promotions)."""
     import jax.numpy as jnp
 
-    from sprintz_tpu.ops.bitmath import block_widths_lowdim
+    from sprintz_jax.ops.bitmath import block_widths_lowdim
 
     eb = 8 * elem_sz
     nb = 512
@@ -246,7 +247,7 @@ def test_interleave_rows_dmajor(rng, ndims, elem_sz):
 @pytest.mark.parametrize("ndims,elem_sz", [(1, 1), (2, 1), (4, 1), (2, 2)])
 def test_dmajor_encode_bytes_identical(rng, ndims, elem_sz):
     """The dim-major encode pass must emit byte-identical streams."""
-    from sprintz_tpu import encoder
+    from sprintz_jax import encoder
 
     dt = np.uint8 if elem_sz == 1 else np.uint16
     x = np.where(rng.random(4000 * ndims) < 0.3,
@@ -272,7 +273,7 @@ def test_grouped_unpack_pack_match(rng, ndims, elem_sz):
     batched forms, including at nb not a multiple of the group."""
     import jax.numpy as jnp
 
-    from sprintz_tpu.ops.bitmath import block_widths_lowdim
+    from sprintz_jax.ops.bitmath import block_widths_lowdim
 
     eb = 8 * elem_sz
     nb = 517  # deliberately not a multiple of any group size
@@ -292,7 +293,7 @@ def test_grouped_unpack_pack_match(rng, ndims, elem_sz):
 @pytest.mark.parametrize("ndims,elem_sz", [(1, 1), (3, 1), (4, 1), (2, 2)])
 def test_grouped_decode_pass_identical(rng, ndims, elem_sz):
     """The grouped lowdim pass must decode identically to legacy."""
-    from sprintz_tpu import decoder, encoder
+    from sprintz_jax import decoder, encoder
 
     dt = np.uint8 if elem_sz == 1 else np.uint16
     lim = 9 if elem_sz == 1 else 900
@@ -318,7 +319,7 @@ def test_grouped_decode_pass_identical(rng, ndims, elem_sz):
 def test_grouped_scatter_runs_identical(rng, ndims, elem_sz):
     """The grouped flat-scatter runs path must decode RLE-heavy lowdim
     streams identically to the legacy row scatter."""
-    from sprintz_tpu import decoder, encoder
+    from sprintz_jax import decoder, encoder
 
     dt = np.uint8 if elem_sz == 1 else np.uint16
     lim = 6 if elem_sz == 1 else 600
@@ -349,7 +350,7 @@ def test_grouped_scatter_runs_identical(rng, ndims, elem_sz):
 def test_runs_timeline_gather_identical(rng, ndims, elem_sz, lowdim, codec):
     """The block-gather runs timeline must decode RLE-heavy streams
     identically to the legacy row scatter (rowmajor + non-grouped lowdim)."""
-    from sprintz_tpu import decoder, encoder
+    from sprintz_jax import decoder, encoder
 
     dt = np.uint8 if elem_sz == 1 else np.uint16
     lim = 6 if elem_sz == 1 else 600
@@ -384,7 +385,7 @@ def test_runs_timeline_gather_identical(rng, ndims, elem_sz, lowdim, codec):
 def test_grouped_encode_identical(rng, ndims, elem_sz):
     """The grouped lowdim encode pass must emit byte-identical streams
     to the legacy and dmajor formulations (runs + data mix)."""
-    from sprintz_tpu import encoder
+    from sprintz_jax import encoder
 
     dt = np.uint8 if elem_sz == 1 else np.uint16
     lim = 6 if elem_sz == 1 else 600
@@ -410,7 +411,7 @@ def test_grouped_encode_identical(rng, ndims, elem_sz):
 
 def test_dmajor_decode_toggle_identical(rng):
     """Production lowdim decode must be identical with dmajor on/off."""
-    from sprintz_tpu import decoder, encoder
+    from sprintz_jax import decoder, encoder
 
     x = (np.cumsum(rng.integers(-9, 10, 4000 * 4)) % 256).astype(np.uint8)
     s = encoder.compress(x, 4, codec="delta")
@@ -433,7 +434,7 @@ def test_lowdim_stream_bytes_identical_across_impls(rng, ndims, elem_sz):
     """The lowdim kernel formulation is an implementation detail: the
     compressed stream must be bit-identical under all three, and each
     must decode the others' output."""
-    from sprintz_tpu import decoder, encoder
+    from sprintz_jax import decoder, encoder
 
     flat = np.cumsum(rng.integers(-9, 10, 1500 * ndims)).astype(
         np.uint8 if elem_sz == 1 else np.uint16)
@@ -481,8 +482,8 @@ def test_prefix_fold_exact(rng, prefix_impl, fold, value_bits, ncols):
 def test_unpack_pair_identical(rng, codec, runs):
     """Paired-dim unpack (halved weight tensor) must decode u8 rowmajor
     streams identically to the per-dim formulation (contiguous + runs)."""
-    from sprintz_tpu import decoder, encoder
-    from sprintz_tpu.ops import pack
+    from sprintz_jax import decoder, encoder
+    from sprintz_jax.ops import pack
 
     n, D = 6000, 17
     seg = rng.integers(-6, 7, (n, D))
@@ -506,8 +507,8 @@ def test_unpack_pair_identical(rng, codec, runs):
 
 def test_pack_pair_identical(rng):
     """Paired-dim packing must emit byte-identical u8 streams."""
-    from sprintz_tpu import encoder
-    from sprintz_tpu.ops import pack
+    from sprintz_jax import encoder
+    from sprintz_jax.ops import pack
 
     x = (np.cumsum(rng.integers(-6, 7, (5000, 17)), axis=0)
          % 256).astype(np.uint8).reshape(-1)
@@ -529,7 +530,7 @@ def test_pack_pair_identical(rng):
 def test_rowmajor_fold_identical(rng, ndims, elem_sz):
     """The block-folded rowmajor delta decode (G = 128/D virtual lanes)
     must match the unfolded pass bit-for-bit."""
-    from sprintz_tpu import decoder, encoder
+    from sprintz_jax import decoder, encoder
 
     dt = np.uint8 if elem_sz == 1 else np.uint16
     x = (np.cumsum(rng.integers(-6, 7, (3000, ndims)), axis=0)

@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from sprintz_tpu import native_host
-from sprintz_tpu.decoder import _walk_headers_py, walk_headers
-from sprintz_tpu.golden.stream import read_metadata_rle
-from sprintz_tpu.planner import _build_plan_py
+from sprintz_jax import native_host
+from sprintz_jax.decoder import _walk_headers_py, walk_headers
+from sprintz_jax.golden.stream import read_metadata_rle
+from sprintz_jax.planner import _build_plan_py
 
 from conftest import make_stream
 
@@ -33,7 +33,7 @@ def test_build_plan_native_matches_py(rng):
 
 
 def test_walk_headers_native_matches_py(rng):
-    from sprintz_tpu import encoder
+    from sprintz_jax import encoder
 
     for codec in ("delta", "xff"):
         for elem_sz in (1, 2):
@@ -59,7 +59,7 @@ def test_walk_headers_native_matches_py(rng):
 def test_gather_units_native_matches_py(rng, monkeypatch):
     """Native threaded-memcpy gather == numpy fancy-index gather, for
     rowmajor and lowdim streams with runs."""
-    from sprintz_tpu import decoder, encoder
+    from sprintz_jax import decoder, encoder
 
     if native_host.get_lib() is None:
         pytest.skip("native lib unavailable")
@@ -98,8 +98,8 @@ def test_walk_gather_fused_matches_serial(rng):
     jax.config.update("jax_platforms", "cpu")
     import numpy as np
 
-    from sprintz_tpu import decoder, encoder
-    from sprintz_tpu.golden.stream import read_metadata_rle
+    from sprintz_jax import decoder, encoder
+    from sprintz_jax.golden.stream import read_metadata_rle
 
     cases = []
     raw = (np.cumsum(rng.integers(-6, 7, (4096, 24)), axis=0)
@@ -146,9 +146,9 @@ def test_index_and_gather_pad_dense(rng, lowdim_d, runs):
     jax.config.update("jax_platforms", "cpu")
     import numpy as np
 
-    from sprintz_tpu import decoder, encoder
-    from sprintz_tpu.golden.stream import read_metadata_rle
-    from sprintz_tpu.utils.shapes import next_bucket
+    from sprintz_jax import decoder, encoder
+    from sprintz_jax.golden.stream import read_metadata_rle
+    from sprintz_jax.utils.shapes import next_bucket
 
     D = lowdim_d or 24
     lowdim = lowdim_d is not None

@@ -7,7 +7,7 @@ adds oracle byte-exactness when the reference library is available.
 import numpy as np
 import pytest
 
-from sprintz_tpu.models import online as ol
+from sprintz_jax.models import online as ol
 
 import oracle
 

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from sprintz_tpu import encoder
-from sprintz_tpu.query import Operation, QueryParams, query
+from sprintz_jax import encoder
+from sprintz_jax.query import Operation, QueryParams, query
 
 from conftest import make_stream
 
@@ -51,7 +51,7 @@ def test_query_compact_o1_runs(rng, elem_sz):
     """Delta + materialize=False takes the O(data-blocks) compact path
     (the reference's nrepeats trick, query.hpp:95-135): 99%-RLE streams
     with nonzero run values, leading runs, and trailing runs."""
-    from sprintz_tpu.query import pushdown
+    from sprintz_jax.query import pushdown
 
     dt = np.uint8 if elem_sz == 1 else np.uint16
     for ndims in [1, 9]:
@@ -85,7 +85,7 @@ def test_query_compact_o1_runs(rng, elem_sz):
 
 def test_query_compact_all_runs(rng):
     # a stream that is nothing but runs (all zeros)
-    from sprintz_tpu.query import pushdown
+    from sprintz_jax.query import pushdown
 
     x = np.zeros(50_000, dtype=np.uint8)
     buf = encoder.compress(x, 1, codec="delta")
@@ -223,7 +223,7 @@ def test_query_oracle_sum_state(rng, codec, elem_sz):
         assert ret == x.size
         # the RLE group structure leaves a verbatim tail the query engine
         # copies without reducing (remaining_len rows)
-        from sprintz_tpu.golden.stream import read_metadata_rle
+        from sprintz_jax.golden.stream import read_metadata_rle
         _, rem, _ = read_metadata_rle(buf)
         model = _ref_sum_state_model(x[: len(x) - rem // ndims], state.size)
         lanes = min(state.size, (32 // elem_sz) * (-(-ndims * elem_sz // 32)))
@@ -252,7 +252,7 @@ def test_query_oracle_max_state(rng, codec, elem_sz):
         ours = query(buf, QueryParams(Operation.REDUCE_MAX, False),
                      codec, elem_sz)
         # the reference never reduces the verbatim tail rows; ours does
-        from sprintz_tpu.golden.stream import read_metadata_rle
+        from sprintz_jax.golden.stream import read_metadata_rle
         _, rem, _ = read_metadata_rle(buf)
         np.testing.assert_array_equal(
             ref_max, x[: len(x) - rem // ndims].max(axis=0))

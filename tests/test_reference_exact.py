@@ -11,9 +11,9 @@ import numpy as np
 import pytest
 
 import oracle
-from sprintz_tpu import api
-from sprintz_tpu.golden.lowdim import compress_lowdim_rle
-from sprintz_tpu.golden.rowmajor import compress_rowmajor_rle
+from sprintz_jax import api
+from sprintz_jax.golden.lowdim import compress_lowdim_rle
+from sprintz_jax.golden.rowmajor import compress_rowmajor_rle
 
 from conftest import KINDS, make_stream
 

@@ -10,7 +10,7 @@ onenn:87-99, knn:101-121).
 import numpy as np
 import pytest
 
-from sprintz_tpu import search
+from sprintz_jax import search
 
 
 @pytest.fixture(scope="module")

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from sprintz_tpu.golden.stream import compress_simple, decompress_simple
+from sprintz_jax.golden.stream import compress_simple, decompress_simple
 
 from conftest import KINDS, make_stream
 

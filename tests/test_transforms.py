@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 
 import oracle
-from sprintz_tpu.transforms import (
+from sprintz_jax.transforms import (
     KINDS,
     transform_decode,
     transform_decode_inplace,

@@ -5,9 +5,9 @@ import numpy as np
 import pytest
 
 import oracle
-from sprintz_tpu.golden.univariate8b import (
+from sprintz_jax.golden.univariate8b import (
     compress_dyndelta_8b, decompress_dyndelta_8b)
-from sprintz_tpu.univariate import compress_univariate, decompress_univariate
+from sprintz_jax.univariate import compress_univariate, decompress_univariate
 
 from conftest import make_stream
 
@@ -55,7 +55,7 @@ def test_dyndelta_picks_doubledelta_on_ramps():
 
 @pytest.mark.skipif(not oracle.available(), reason="oracle not built")
 def test_delta_doubledelta_byte_exact(rng):
-    from sprintz_tpu.golden import univariate8b as u8b
+    from sprintz_jax.golden import univariate8b as u8b
 
     pairs = {
         "delta8b": (u8b.compress_delta_8b, u8b.decompress_delta_8b),
@@ -84,7 +84,7 @@ def test_legacy_facade_roundtrips(rng):
 
 @pytest.mark.skipif(not oracle.available(), reason="oracle not built")
 def test_delta_simple_rle_byte_exact(rng):
-    from sprintz_tpu.golden import univariate8b as u8b
+    from sprintz_jax.golden import univariate8b as u8b
 
     for n in [0, 1, 15, 16, 17, 63, 64, 65, 1000, 4099, 50_000]:
         for kind in ("rand", "small", "zeros", "sparse", "ramp"):
@@ -114,7 +114,7 @@ def test_all_nine_byte_exact(rng):
     byte-for-byte (decoders: self round-trip always; reference
     cross-decode where the reference's decoder isn't its documented
     speed-hack)."""
-    from sprintz_tpu.golden import univariate8b as u8b
+    from sprintz_jax.golden import univariate8b as u8b
 
     enc_dec = {
         "delta_simple8b": (u8b.compress_delta_simple_8b,

@@ -21,8 +21,8 @@ import jax
 import numpy as np
 import pytest
 
-import sprintz_tpu.ops.pack as pack
-from sprintz_tpu.ops.bitmath import block_widths_rowmajor
+import sprintz_jax.ops.pack as pack
+from sprintz_jax.ops.bitmath import block_widths_rowmajor
 
 
 @pytest.fixture(params=["bf16", "bf3"])
@@ -77,7 +77,7 @@ def test_decode_identical_across_variants(rng, codec, runs, ndims,
                                           elem_sz):
     """Full streams decode identically under bf16/bf3 x nwin auto/3
     (contiguous + runs paths; d32 exercises the rowmajor fold)."""
-    from sprintz_tpu import decoder, encoder
+    from sprintz_jax import decoder, encoder
 
     dt = np.uint8 if elem_sz == 1 else np.uint16
     lim = 6 if elem_sz == 1 else 600
@@ -105,7 +105,7 @@ def test_decode_identical_across_variants(rng, codec, runs, ndims,
 def test_encode_bytes_identical_nwin(rng, codec):
     """u8 streams must be byte-identical with 2 vs 3 pack windows and
     under the bf3 unpack (the encoder's width probe also unpacks)."""
-    from sprintz_tpu import encoder
+    from sprintz_jax import encoder
 
     x = (np.cumsum(rng.integers(-6, 7, (5000, 33)), axis=0)
          % 256).astype(np.uint8).reshape(-1)

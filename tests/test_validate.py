@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from sprintz_tpu import encoder
-from sprintz_tpu.validate import validate_stream
+from sprintz_jax import encoder
+from sprintz_jax.validate import validate_stream
 
 from conftest import make_stream
 
@@ -19,7 +19,7 @@ def test_valid_streams_pass(rng):
 
 
 def _tail(buf):
-    from sprintz_tpu.golden.stream import read_metadata_rle
+    from sprintz_jax.golden.stream import read_metadata_rle
 
     return read_metadata_rle(buf)[1]
 

@@ -6,7 +6,8 @@ parity IN scope (the paper pipes sprintz output through Huff0,
 entropy.cpp:22-44 is an empty-table stub). This study compares, on the
 sprintz residual streams of every mini-corpus cell:
 
-- ours @ cs=128 (device-decode default) and cs=4096 (ratio-first),
+- ours @ cs=128 (for a chunk-parallel device decode) and cs=4096
+  (the default),
   production containers (stored-escape enabled),
 - zstd's actual Huff0 (``HUF_compress1X_repeat``, fresh table per
   64 KiB block, linked from the system libzstd.a via
@@ -86,7 +87,7 @@ def order0_bound(payload: bytes, bs: int = BS) -> float:
 
 def our_overhead(comp: bytes) -> dict:
     """Decompose our container: header+table, size entries, align pad."""
-    from sprintz_tpu.entropy import huffman as hf
+    from sprintz_jax.entropy import huffman as hf
 
     n, cs, nchunks, t, sizes, offsets = hf._parse(comp)
     payload_bytes = int(sizes.sum())
@@ -100,10 +101,10 @@ def main():
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    from sprintz_tpu import api
-    from sprintz_tpu.data import loaders
-    from sprintz_tpu.data.corpus import quantize
-    from sprintz_tpu.entropy import huffman as hf
+    from sprintz_jax import api
+    from sprintz_jax.data import loaders
+    from sprintz_jax.data.corpus import quantize
+    from sprintz_jax.entropy import huffman as hf
 
     tool = build_huf0()
     real_dir = "tests/data/mini_corpus"
